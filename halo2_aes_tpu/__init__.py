@@ -1,4 +1,4 @@
-"""halo2_aes_tpu: a TPU-native AES-in-ZK proving stack.
+"""halo2_aes_tpu: a JAX AES-in-ZK proving stack for the GPU.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 `tkmct/halo2-aes` circuit library *plus* the halo2 (PSE v0.3.0) proving

@@ -4,7 +4,7 @@ Role of halo2curves' pairing in the verifier's final KZG/SHPLONK check
 (SURVEY.md section 2.13; the reference crate itself never verifies —
 building a verifier is a deliberate capability addition, SURVEY.md §7
 step 7).  Verification is O(proof size), so it is host-side by design:
-the TPU does proving, the transcript/pairing layer is python ints.
+the accelerator does proving, the transcript/pairing layer is python ints.
 
 Representations:
   * Fq2 = Fq[i]/(i^2+1) as (a, b) tuples.

@@ -130,14 +130,14 @@ def grand_products(k: int, usable: int, chunk_len: int, all_fld,
     label values for column i are rebuilt here from the int32 maps +
     the omega/delta power tables, ONE column at a time: materializing
     the full (m*n, LIMBS) num/den/ratio/sigma/id tensors at once (the
-    pre-r3 shape of this function) peaked >3.5 GB of transient HBM at
-    k=20 — a measured OOM.  Per-column streaming peaks ~7 column-sized
+    pre-r3 shape of this function) peaked >3.5 GB of transient device
+    memory at k=20.  Per-column streaming peaks ~7 column-sized
     buffers; one batched inversion per CHUNK (not per column).
 
     beta_m/gamma_m: (16,) Montgomery challenges.  blinding: (chunks,
     blind_rows, LIMBS) random tails.  Returns FLAT (chunks*n, LIMBS);
     z_t[0] = z_{t-1}[usable] (chunk linking), z_0[0] = 1.  All device
-    tensors stay rank-2 (TPU lane-padding economics)."""
+    tensors stay rank-2 (rows, 16)."""
     n = 1 << k
     m = len(perm_columns)
     chunks = -(-m // chunk_len)

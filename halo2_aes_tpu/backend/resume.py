@@ -1,8 +1,8 @@
 """Per-phase prove checkpointing (crash/OOM-restartable proving).
 
 Role: SURVEY.md §5.3 — the reference has no failure recovery at all;
-a TPU-native prover at k=20 scale can lose ~15 minutes of NTT/MSM work
-to a single HBM OOM in a late phase, so each heavy phase's outputs
+a prover at k=20 scale can lose many minutes of NTT/MSM work to a
+single out-of-memory failure in a late phase, so each heavy phase's outputs
 (coefficient tensors + commitment points + blinding-RNG state) are
 persisted and a rerun of ``prove(..., checkpoint_dir=...)`` replays the
 Fiat-Shamir absorb sequence from the saved points and resumes compute

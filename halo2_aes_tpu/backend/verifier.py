@@ -8,7 +8,7 @@ recomputes the expected quotient value at the challenge point from the
 shared protocol terms, reconstructs the SHPLONK linearization
 commitment, and checks one pairing product.
 
-Everything here is O(proof size) scalar math; nothing touches the TPU.
+Everything here is O(proof size) scalar math; nothing touches the accelerator.
 """
 
 from __future__ import annotations

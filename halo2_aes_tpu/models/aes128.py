@@ -1,6 +1,6 @@
 """The fixed-key multi-block AES-128 circuit, compiled to a static layout.
 
-TPU-native counterpart of ``FixedAes128Config<K, N>`` (reference
+Batched-JAX counterpart of ``FixedAes128Config<K, N>`` (reference
 src/aes128.rs): same constraint structure — 4 shared table columns, N sets
 of 3 advice columns with 5 lookup arguments each, a dedicated key-schedule
 words column + rcon fixed column + one custom gate, ShiftRows as pure
@@ -68,7 +68,8 @@ class AesConfig:
     #   reference's 5, src/aes128.rs:63-115) — same rows, same table,
     #   one extra fixed tag column per set.  Fewer lookups = 3 fewer
     #   commitments/NTTs/grand-products per set per proof and ~0.5 GB
-    #   less HBM per set at k=20; the proof shrinks by 96 bytes/set.
+    #   less device memory per set at k=20; the proof shrinks by 96
+    #   bytes/set.
     #   Default OFF: the 5-lookup shape is the byte-for-byte reference
     #   parity configuration.
 

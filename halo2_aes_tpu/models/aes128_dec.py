@@ -2,7 +2,7 @@
 
 The reference stages the InvMixColumns mul tables (reference
 src/constant.rs:49-111) but builds no decryption chips or circuit; this
-module completes that staged capability TPU-first.  Structure mirrors
+module completes that staged capability.  Structure mirrors
 models/aes128.py — static layout templates, batched witness pool, free
 InvShiftRows as copy rewiring, 1360 rows/block — but the lookup design
 is leaner: all 2-column table ops (forward S-box for the key schedule,

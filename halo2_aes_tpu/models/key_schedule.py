@@ -1,6 +1,6 @@
 """AES-128 key-schedule gadget as a static layout template.
 
-The TPU equivalent of reference src/key_schedule.rs: the gadget occupies
+The equivalent of reference src/key_schedule.rs: the gadget occupies
 a fixed window of rows — 400 chip rows on column-set 0 (per round: 4 sbox
 + 4 rcon-xor + 16 chain-xor + 16 range checks) plus 96 rows of the
 dedicated ``words`` advice column (16 key bytes + per round 4 RotWord

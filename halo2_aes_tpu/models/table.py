@@ -10,7 +10,7 @@ Replicates the reference's central design trick (reference src/table.rs:
   row   66560         all-zero row that disabled (q=0) lookups resolve to
 Remaining rows default to zero (harmless duplicates of the zero row).
 
-Built vectorized as four numpy arrays — the TPU analog of 266k
+Built vectorized as four numpy arrays — the vectorized analog of 266k
 assign_cell calls in the reference.
 """
 

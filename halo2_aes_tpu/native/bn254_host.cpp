@@ -2,7 +2,7 @@
 // the Fq12 tower, and the optimal-ate pairing product.
 //
 // Role: halo2curves' CPU curve/pairing layer (reference Cargo.lock:
-// halo2curves 0.6.1) for the VERIFIER path — proving runs on the TPU,
+// halo2curves 0.6.1) for the VERIFIER path — proving runs on the accelerator,
 // but verification is O(proof size) host scalar math and a serving
 // deployment verifies far more often than it proves.  The Python
 // bigint implementation (backend/pairing.py, ops/curve.py py_*) stays

@@ -1,6 +1,6 @@
 """Batched AES-128 witness engine.
 
-This is the TPU replacement for the reference's cell-by-cell witness
+This is the batched replacement for the reference's cell-by-cell witness
 assignment (reference src/aes128.rs:154-265, src/key_schedule.rs:80-224,
 src/utils.rs:8-33): instead of assigning one region per byte op through a
 dynamic Layouter, we compute the *entire trace* of every AES block as a

@@ -2,7 +2,7 @@
 
 Role of `halo2curves` bn256 G1 in the reference dependency tree
 (reference Cargo.lock:779-781): the group the KZG commitment MSMs live
-in.  TPU-first design: points are structure-of-arrays limb tensors
+in.  Points are structure-of-arrays limb tensors
 (X, Y, Z each ``(..., 16)`` uint32, Montgomery form) and every group
 operation uses the Renes-Costello-Batina COMPLETE addition formulas for
 a = 0 prime-order curves (eprint 2015/1060, algorithms 7 and 9):
@@ -88,14 +88,7 @@ def add(p, q):
     either side, P + P, and P + (-P) with NO branches or selects.
 
     12 field multiplies in two stacked stages + cheap add chains.
-    Large batches route to the fused Pallas kernel when enabled
-    (ops/pallas_curve.py).
     """
-    from halo2_aes_tpu.ops import pallas_curve
-
-    fused = pallas_curve.maybe_add(p, q)
-    if fused is not None:
-        return fused
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
     fadd = lambda a, b: F.add(FQ, a, b)  # noqa: E731

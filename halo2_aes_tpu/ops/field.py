@@ -1,20 +1,22 @@
-"""Prime-field arithmetic for TPU: fixed-width limb vectors + Montgomery mul.
+"""Prime-field arithmetic: fixed-width limb vectors + Montgomery mul.
 
-This is the foundation layer of the TPU-native halo2-style proving stack
-(role of `ff`/`halo2curves` field arithmetic in the reference dependency
-tree, see reference Cargo.lock:558-560, 779-781).
+This is the foundation layer of the halo2-style proving stack (role of
+`ff`/`halo2curves` field arithmetic in the reference dependency tree,
+see reference Cargo.lock:558-560, 779-781).
 
-Design (TPU-first):
+Design:
   * A field element is a little-endian vector of 16 limbs x 16 bits stored
-    in ``uint32`` lanes: shape ``(..., 16)``.  TPUs have no 64-bit integer
-    multiply; 16x16->32-bit products fit exactly in a uint32 lane and the
-    VPU vectorizes everything over the leading (batch) axes.
+    in ``uint32`` lanes: shape ``(..., 16)``.  16x16->32-bit products fit
+    exactly in a uint32 lane, and every op vectorizes over the leading
+    (batch) axes.
   * Multiplication is Montgomery (R = 2^256) with a redundant-limb
     accumulator: partial products are split into lo/hi 16-bit halves and
     accumulated in uint32 columns (bounded < 2^23, no overflow), so carry
     propagation happens only once at the end.
-  * All loops are static Python loops over the 16 limbs -> XLA sees a
-    fully unrolled, branch-free dataflow graph it can fuse and tile.
+  * Graphs stay small: by default a multiply is a 16-step fori_loop and
+    every carry chain a loop-free log-depth carry-lookahead; an
+    unrolled form (static Python loops over the limbs) is kept for
+    measurement (see ``set_compact_graphs``).
   * Batch inversion uses two ``associative_scan`` cumulative products +
     one Fermat inversion, replacing the sequential loop a CPU
     implementation would use.
@@ -164,15 +166,15 @@ FQ = FieldSpec("bn254_fq", FQ_MODULUS)
 
 _U32 = jnp.uint32
 
-# Graph-size mode: the unrolled kernels below trace ~hundreds of ops per
-# field multiply, which XLA fuses into near-optimal vector code but
-# compiles slowly when thousands of multiplies appear in one computation
-# (MSM scans).  Compact mode swaps in fori_loop bodies (~10 ops traced
-# per multiply): far faster to compile, less fusable at runtime.  Tests
-# on the single-CPU host enable it (tests/conftest.py); TPU runs keep
-# the unrolled default.
-_COMPACT = False
-_USE_PALLAS = False
+# Graph-size mode.  Compact (the default) traces each multiply as a
+# 16-step fori_loop (~10 ops) and every carry chain as a loop-free
+# log-depth carry-lookahead; unrolled traces ~hundreds of ops per
+# multiply and sequential carry chains.  On an H100 unrolled graphs ran
+# a 32 x 2^17 coset-NTT group 15x faster, but XLA had not finished
+# compiling the unrolled SRS window sum after 8 minutes, so the prover
+# runs compact everywhere.  ``set_compact_graphs(False)`` exists for
+# measurements (tests/test_kernels.py times both forms).
+_COMPACT = True
 
 
 def set_compact_graphs(on: bool) -> None:
@@ -180,14 +182,6 @@ def set_compact_graphs(on: bool) -> None:
     below cache traces, and a later flip would not retrace them."""
     global _COMPACT
     _COMPACT = bool(on)
-
-
-def set_pallas(on: bool) -> None:
-    """Route large multiplies through the Pallas TPU kernel
-    (ops/pallas_field.py; measured ~4x the XLA path on v5e).  Same
-    trace-caching caveat as set_compact_graphs."""
-    global _USE_PALLAS
-    _USE_PALLAS = bool(on)
 
 
 def _mask():
@@ -204,25 +198,36 @@ def _dus_add(acc, v, start):
     return jax.lax.dynamic_update_slice_in_dim(acc, seg + v, start, axis=-1)
 
 
-def _carry_norm(acc, out_limbs=LIMBS):
-    """Sequentially propagate carries: redundant limbs (<2^32) -> canonical
-    16-bit limbs.  ``acc`` has shape (..., m); returns (..., out_limbs).
+def _shift_up(x, d: int):
+    """x[..., i - d] along the limb axis, zeros shifted in at the bottom."""
+    pad = [(0, 0)] * (x.ndim - 1) + [(d, 0)]
+    return jnp.pad(x[..., : x.shape[-1] - d], pad)
 
-    Sequential steps of cheap vector ops; negligible next to the
-    multiplies, and exact for arbitrary ripple distance.
+
+def _carry_norm(acc, out_limbs=LIMBS):
+    """Propagate carries: redundant limbs (<2^32) -> canonical 16-bit
+    limbs of the value mod 2^(16m).  ``acc`` has shape (..., m); returns
+    (..., out_limbs).
+
+    Compact mode is loop-free: one split moves every limb's high half up
+    a limb (leaving limbs < 2^17, so each carry is 0 or 1), then a
+    Kogge-Stone prefix over (generate, propagate) bits resolves the
+    ripple in ceil(log2 m) vectorized rounds.  Unrolled mode runs the
+    sequential chain.
     """
     m = acc.shape[-1]
     if _COMPACT:
-        def step(i, state):
-            out, carry = state
-            v = jax.lax.dynamic_slice_in_dim(acc, i, 1, axis=-1) + carry
-            out = jax.lax.dynamic_update_slice_in_dim(out, v & _mask(), i, axis=-1)
-            return out, v >> LIMB_BITS
-
-        out0 = jnp.zeros_like(acc)
-        carry0 = jnp.zeros((*acc.shape[:-1], 1), dtype=_U32)
-        out, _ = jax.lax.fori_loop(0, m, step, (out0, carry0))
-        return out[..., :out_limbs]
+        mask = _mask()
+        s = (acc & mask) + _shift_up(acc >> LIMB_BITS, 1)   # < 2^17 - 1
+        t = s & mask
+        gen = s >> LIMB_BITS                    # carry out regardless of c
+        prop = (t == mask).astype(_U32)         # carry out iff carry in
+        d = 1
+        while d < m:
+            gen = gen | (prop & _shift_up(gen, d))
+            prop = prop & _shift_up(prop, d)
+            d *= 2
+        return ((t + _shift_up(gen, 1)) & mask)[..., :out_limbs]
     limbs = []
     carry = jnp.zeros(acc.shape[:-1], dtype=_U32)
     for i in range(m):
@@ -320,7 +325,7 @@ def _mont_mul_impl(a, b, p_limbs, n0inv):
     Interleaved operand-scanning (CIOS) with a redundant uint32
     accumulator, vectorized over the limb axis: each of the 16 outer
     steps is one 16-wide multiply plus slice-adds, so the traced graph
-    stays small and the VPU sees wide lanes.  Bounds: every accumulator
+    stays small and every op is wide.  Bounds: every accumulator
     limb receives at most 16 lo + 16 hi halves from the product plus
     16 lo + 16 hi from the reduction plus carries => < 2^23 << 2^32.
     """
@@ -377,20 +382,14 @@ def mont_mul(spec: FieldSpec, a, b):
 
 
 def mont_mul_fast(spec: FieldSpec, a, b):
-    """Montgomery multiply through the Pallas kernel when enabled.
+    """Montgomery multiply through the Pallas kernel where
+    ``pallas_field.use_kernel`` picks it (GPU, large batch), else
+    ``mont_mul``.  Only the hot batched sites (the NTT butterfly, the
+    coset shift) call this wrapper."""
+    from halo2_aes_tpu.ops import pallas_field
 
-    EXPLICIT-SITE POLICY: every jitted module pays one remote Mosaic
-    compile PER Pallas call site (minutes each, and ~100-site modules
-    OOM-kill the compile helper — see memory/tpu-pallas-compile-rules).
-    So ``mont_mul`` never auto-routes; only a handful of chosen hot
-    sites (the NTT butterfly, the coset shift) call this wrapper."""
-    if _USE_PALLAS:
-        from halo2_aes_tpu.ops import pallas_field
-
-        out = pallas_field.maybe_mont_mul(spec, a, b)
-        if out is not None:
-            return out
-    return mont_mul(spec, a, b)
+    out = pallas_field.maybe_mont_mul(spec, a, b)
+    return mont_mul(spec, a, b) if out is None else out
 
 
 def mul(spec: FieldSpec, a, b):
@@ -524,7 +523,7 @@ def cumprod_segmented(spec: FieldSpec, a, seg_len: int):
 def batch_inv(spec: FieldSpec, a):
     """Invert a batch (n, 16) with one field inversion + O(n) muls.
 
-    Montgomery's trick, TPU style: two (blocked) cumulative products +
+    Montgomery's trick, vectorized: two (blocked) cumulative products +
     one Fermat inversion + two elementwise muls.
     Zero entries map to zero (scan-safe: zeros are replaced by ONE and
     masked back at the end).

@@ -1,4 +1,4 @@
-"""Number-theoretic transform over BN254 Fr, TPU-vectorized.
+"""Number-theoretic transform over BN254 Fr, vectorized over the batch.
 
 Replaces the rayon-parallel best_fft of the reference's proving backend
 (SURVEY.md section 2.13 item 3: coset NTT for the quotient polynomial).
@@ -127,8 +127,9 @@ def _ntt_impl(dom: Domain, x, inverse: bool = False, count: int = 1):
     so the traced graph is ONE stage regardless of k (compile time would
     otherwise scale with k * batch; measured 500s+ for an unrolled k=10
     on XLA CPU).  Each element gathers its partner, so the multiply is
-    done for both halves (2x redundant) — a deliberate trade of VPU work
-    for constant graph size; the Pallas kernel path removes it later.
+    done for both halves (2x redundant) — a deliberate trade of
+    arithmetic for constant graph size.  On the GPU the multiply runs
+    in the Pallas kernel (field.mont_mul_fast).
     """
     spec = dom.spec
     n = dom.n
@@ -152,7 +153,7 @@ def _ntt_impl(dom: Domain, x, inverse: bool = False, count: int = 1):
         lo = jnp.take(x, lo_idx, axis=0)
         hi = jnp.take(x, hi_idx, axis=0)
         tw = jnp.take(tw_full, tw_idx, axis=0)
-        # the one multiply per stage — an explicit Pallas fast site
+        # the one multiply per stage
         t = F.mont_mul_fast(spec, hi, tw)
         upper = (j >= half)[:, None]
         return jnp.where(upper, F.sub(spec, lo, t), F.add(spec, lo, t))
@@ -166,19 +167,16 @@ def _ntt_impl(dom: Domain, x, inverse: bool = False, count: int = 1):
 
 # max rows (count * n) per batched-NTT group: butterfly temps are ~5
 # live (rows, 16) u32 tensors, so 2^22 rows keeps one group's working
-# set ~1.3 GB — wide enough to fill the VPU, small enough for the k=20
-# phase budgets.
+# set ~1.3 GB — wide enough to amortize launches, small enough for the
+# k=20 phase budgets.
 NTT_GROUP_ROWS = 1 << 22
 
 
 def _group_rows() -> int:
-    """Per-group row budget: wide on TPU (dispatch amortization, HBM
-    streams fine), narrow on CPU where a multi-poly lattice's per-stage
-    working set (rows * 64 B * ~5 live temps) falls out of LLC and costs
-    ~3x wall clock (measured: k=17 keygen 280 s batched vs 102 s
-    per-poly on the 1-core host)."""
-    import jax
-
+    """Per-group row budget: wide on an accelerator (launch
+    amortization), narrow on CPU where a multi-poly lattice's per-stage
+    working set (rows * 64 B * ~5 live temps) falls out of the last-level
+    cache and costs ~3x wall clock (k=17 keygen on a one-core host)."""
     return (1 << 17) if jax.default_backend() == "cpu" else NTT_GROUP_ROWS
 
 
@@ -194,20 +192,11 @@ def ntt_many(dom: Domain, flat, count: int, inverse: bool = False,
     spec = dom.spec
     if shift_pows is not None:
         flat = F.mont_mul_fast(spec, flat, jnp.tile(shift_pows, (count, 1)))
-
-    # the fused four-step Pallas lattice (all butterfly stages in VMEM)
-    # replaces the per-stage HBM-gather XLA path when enabled — an
-    # explicit fast site per the Mosaic call-site economics
-    from halo2_aes_tpu.ops import pallas_ntt as PN
-
-    if PN.enabled_for(dom):
-        def transform(fl, g):
-            return PN.ntt_flat(dom, fl, g, inverse=inverse)
-    elif count == 1:
+    if count == 1:
         return ntt(dom, flat, inverse=inverse)
-    else:
-        def transform(fl, g):
-            return ntt_flat(dom, fl, g, inverse=inverse)
+
+    def transform(fl, g):
+        return ntt_flat(dom, fl, g, inverse=inverse)
 
     Gmax = max(1, min(count, _group_rows() // n))
     groups = -(-count // Gmax)

@@ -1,61 +1,57 @@
-"""Pallas TPU kernel for batched Montgomery multiplication.
+"""Pallas kernel (Triton route) for batched Montgomery multiplication.
 
-The XLA limb kernels in ops/field.py are correct everywhere but leave
-TPU performance on the table: compact (fori_loop) mode spills the
-33-column accumulator to HBM on every loop step, and unrolled mode
-takes tens of minutes of XLA compile on this host.  The Pallas kernel
-gets both: the fully unrolled 16x16 CIOS lattice lives INSIDE one
-kernel (Mosaic compiles straight-line vector code quickly) and the
-accumulator stays in VMEM/registers.
+The XLA limb kernels in ops/field.py run everywhere, but neither of
+their forms keeps the CIOS accumulator on chip: the compact (fori_loop)
+form walks the 16 limb steps one kernel launch at a time, and the
+unrolled form splits every 16x16-bit product into lo/hi halves in
+device memory (on an H100, 2^20 Fr multiplies: ~15 ms compact, ~10 ms
+unrolled, ~0.5 ms here).  This kernel runs the fully unrolled CIOS
+lattice for one element per thread, so the 41 accumulator columns live
+in registers.
 
-Layout: SUBLANE-PACKED limb-major (LIMBS*8, N/8) u32 — limb i occupies
-rows [8i, 8i+8), so every in-kernel value is a fully packed (8, B) tile
-(a (1, N) row uses one sublane of each (8, 128) vreg, idling ~7/8 of
-the VPU — measured 1.6x on the CIOS lattice).  Inside the kernel the
-operands are repacked to TWENTY 13-BIT limbs: 13-bit products are
-<= 26 bits, so the lattice accumulates up to 40 of them in u32 without
-the per-product mask/shift carry split a 16-bit radix needs.  The
-Montgomery radix is then 2^13 (R' = 2^260); repacking 16*a (a 4-bit
-shifted window read, same op count) makes the result a*b*2^-256 — the
-kernel stays drop-in compatible with the external 2^256 form.
+Layout: limb-major (LIMBS, N) u32 planes; a block is (LIMBS, BLK) with
+one element per lane, and the kernel reads limb row i with a static row
+index.  Inside the kernel the operands are repacked to TWENTY 13-BIT
+limbs: 13-bit products are <= 26 bits, so the lattice accumulates up to
+40 of them in u32 without the per-product mask/shift carry split a
+16-bit radix needs.  The Montgomery radix is then 2^13 (R' = 2^260);
+repacking 16*a (a 4-bit shifted window read, same op count) makes the
+result a*b*2^-256, so the kernel is a drop-in for the 2^256 form.
 
-The wrapper transposes/reshapes at the XLA level and pads N to the
-block size.  Enable with ``set_enabled(True)`` (prove.py does this on
-TPU); ``field.mont_mul`` is unchanged — callers opt in via ``mont_mul``
-here.
+The kernel is used on the GPU backend for batches of at least
+``_MIN_ROWS`` elements (``use_kernel``); elsewhere ``field.mont_mul``
+runs.  Tests run it on the CPU with ``interpret=True``.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from halo2_aes_tpu.ops import field as F
 
 LIMBS = F.LIMBS
 MASK = 0xFFFF  # python int: weak-typed inside the kernel (no captured consts)
-SUB = 8       # sublanes per vreg: limb i = rows [8i, 8i+8) of a packed block
-BLK = 2048  # columns per grid step: 3 x (128, 256) u32 = 384 KB VMEM
 
 D = 13                   # in-kernel limb radix
 DLIMBS = 20              # ceil(260/13): 20*13 = 260 >= 254 + 4 shift bits
 DMASK = (1 << D) - 1
 
-_ENABLED = False
+NUM_WARPS = 4
+BLK = 32 * NUM_WARPS     # one element per thread
 
-
-def set_enabled(on: bool) -> None:
-    global _ENABLED
-    _ENABLED = bool(on)
+# Every executable with a kernel call site pays the kernel's Triton
+# compile (~10 s per site on an H100), so only the grouped transforms of
+# >= 2^20 rows (advice, lookup, quotient and keygen NTT groups), where
+# the kernel saves the most, take it.
+_MIN_ROWS = 1 << 20
 
 
 def repack13(limbs16, shift: int):
-    """16 x (8, B) 16-bit rows -> 20 x (8, B) 13-bit rows of value<<shift.
+    """16 16-bit rows -> 20 13-bit rows of value<<shift.
 
     Window j covers source bits [13j - shift, 13j + 13 - shift)."""
     out = []
@@ -100,10 +96,10 @@ def n0inv13(modulus: int) -> int:
 
 
 def mont_mul_rows(a16, b16, p13, n0):
-    """Delayed-carry 13-bit CIOS on packed rows.
+    """Delayed-carry 13-bit CIOS on rows of limbs.
 
-    a16/b16: lists of LIMBS (8, B) u32 16-bit rows (Montgomery,
-    R=2^256); p13: DLIMBS python ints; n0: -p^-1 mod 2^13.
+    a16/b16: lists of LIMBS u32 16-bit rows (Montgomery, R=2^256);
+    p13: DLIMBS python ints; n0: -p^-1 mod 2^13.
     Returns LIMBS 16-bit rows of a*b*2^-256 mod p (fully reduced).
 
     Column bound: <= 40 products of <= (2^13-1)^2 plus carries
@@ -137,140 +133,80 @@ def mont_mul_rows(a16, b16, p13, n0):
     return repack16([jnp.where(ge, d, l) for d, l in zip(diff, limbs)])
 
 
-def _rows_of(ref):
-    return [ref[SUB * i : SUB * (i + 1)] for i in range(LIMBS)]
+def load_rows(ref):
+    """The LIMBS limb rows of one (LIMBS, BLK) block."""
+    return [ref[i, :] for i in range(LIMBS)]
 
 
-def _make_kernel(p13, n0):
-    def _kernel(a_ref, b_ref, o_ref):
-        out = mont_mul_rows(_rows_of(a_ref), _rows_of(b_ref), p13, n0)
-        o_ref[:] = jnp.concatenate(out, axis=0)
-
-    return _kernel
+def store_rows(ref, rows):
+    for i, r in enumerate(rows):
+        ref[i, :] = r
 
 
-def packed_spec(blk: int):
-    return pl.BlockSpec((LIMBS * SUB, blk // SUB), lambda i: (0, i),
-                        memory_space=pltpu.VMEM)
-
-
-@functools.lru_cache(maxsize=None)
-def _fn(modulus: int, n0inv: int, cols: int):
-    p13 = tuple(p13_limbs(modulus))
-    n0 = n0inv13(modulus)
-    c8 = cols // SUB
-
-    @jax.jit
-    def run(at, bt):
-        # at/bt arrive (LIMBS, cols); pack limb rows onto sublanes
-        out = pl.pallas_call(
-            _make_kernel(p13, n0),
-            grid=(cols // BLK,),
-            in_specs=[packed_spec(BLK), packed_spec(BLK)],
-            out_specs=packed_spec(BLK),
-            out_shape=jax.ShapeDtypeStruct((LIMBS * SUB, c8), jnp.uint32),
-        )(at.reshape(LIMBS * SUB, c8), bt.reshape(LIMBS * SUB, c8))
-        return out.reshape(LIMBS, cols)
-
-    return run
-
-
-_MIN_ROWS = 4096  # below this the XLA path's dispatch is cheaper
-
-# Every Pallas invocation runs on EXACTLY this many columns; larger
-# batches are processed as a lax.map over chunks.  One shape -> ONE
-# Mosaic kernel compile for the process lifetime (remote Mosaic
-# compiles cost minutes each; round-1 padded per-size and paid one
-# compile per distinct size).  2^15 balances pad waste on mid-size
-# reduction-tree levels against per-chunk launch overhead.
-CHUNK = 1 << 15
-
-
-def available(a, b) -> bool:
-    return (
-        a.shape[-1] == LIMBS
-        and b.shape[-1] == LIMBS
-        and jax.default_backend() != "cpu"
+def limb_call(kernel, n_in: int, n_out: int, cols: int, name: str,
+              interpret: bool = False):
+    """pallas_call over limb-major (LIMBS, cols) planes, cols % BLK == 0."""
+    spec = pl.BlockSpec((LIMBS, BLK), lambda i: (0, i))
+    plane = jax.ShapeDtypeStruct((LIMBS, cols), jnp.uint32)
+    return pl.pallas_call(
+        kernel,
+        grid=(cols // BLK,),
+        in_specs=[spec] * n_in,
+        out_specs=tuple([spec] * n_out),
+        out_shape=tuple([plane] * n_out),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        name=name,
     )
 
 
-def _canon_cols(n: int) -> int:
-    """Pad to a multiple of the fixed chunk width."""
-    return -(-n // CHUNK) * CHUNK
+def to_planes(arrays, rows: int):
+    """(rows, LIMBS) arrays -> limb-major (LIMBS, cols) planes, padded
+    to a whole number of blocks."""
+    cols = -(-rows // BLK) * BLK
+    return [jnp.pad(a, ((0, cols - rows), (0, 0))).T for a in arrays], cols
 
 
-def _chunked(fn_one, planes, n_out: int):
-    """Run a fixed-(LIMBS, CHUNK) pallas callable over column chunks.
-
-    planes: list of (rows, LIMBS) arrays (row-major); returns the
-    fn_one outputs restacked to (n_out rows, LIMBS) each."""
-    rows = planes[0].shape[0]
-    cols = _canon_cols(rows)
-    nch = cols // CHUNK
-    staged = []
-    for p in planes:
-        pt = jnp.pad(p, ((0, cols - rows), (0, 0))).T      # (LIMBS, cols)
-        staged.append(
-            jnp.moveaxis(pt.reshape(LIMBS, nch, CHUNK), 1, 0))  # (nch, L, C)
-    if nch == 1:
-        outs = fn_one(*(s[0] for s in staged))
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        outs = tuple(o[None] for o in outs)
-    else:
-        outs = jax.lax.map(lambda xs: fn_one(*xs), tuple(staged))
-        if not isinstance(outs, tuple):
-            outs = (outs,)
-    flat = tuple(
-        jnp.moveaxis(o, 0, 1).reshape(LIMBS, cols).T[:n_out] for o in outs
-    )
-    return flat if len(flat) > 1 else flat[0]
+def from_planes(planes, rows: int):
+    return [p.T[:rows] for p in planes]
 
 
-def _mul2d(spec: F.FieldSpec, a, b):
-    n = a.shape[0]
-    run = _fn(spec.modulus, spec.n0inv, CHUNK)
-    return _chunked(run, [a, b], n)
+def batch_rows(shape) -> int:
+    return int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) > 1 else 1
+
+
+def use_kernel(rows: int, platform: str | None = None) -> bool:
+    """The kernel runs on the GPU for batches of at least _MIN_ROWS."""
+    platform = platform or jax.default_backend()
+    return platform == "gpu" and rows >= _MIN_ROWS
+
+
+def mont_mul(spec: F.FieldSpec, a, b, interpret: bool = False):
+    """Kernel Montgomery multiply of broadcastable (..., LIMBS) operands."""
+    shape = jnp.broadcast_shapes(a.shape, b.shape)
+    if shape[-1] != LIMBS:
+        raise ValueError(f"limb axis must be {LIMBS}, got shape {shape}")
+    rows = batch_rows(shape)
+    a2 = jnp.broadcast_to(a, shape).reshape(rows, LIMBS)
+    b2 = jnp.broadcast_to(b, shape).reshape(rows, LIMBS)
+    p13 = tuple(p13_limbs(spec.modulus))
+    n0 = n0inv13(spec.modulus)
+
+    def kernel(a_ref, b_ref, o_ref):
+        store_rows(o_ref, mont_mul_rows(load_rows(a_ref), load_rows(b_ref),
+                                        p13, n0))
+
+    planes, cols = to_planes([a2, b2], rows)
+    (out,) = limb_call(kernel, 2, 1, cols, f"mont_mul_{spec.name}",
+                       interpret)(*planes)
+    return from_planes([out], rows)[0].reshape(shape)
 
 
 def maybe_mont_mul(spec: F.FieldSpec, a, b):
-    """Pallas Montgomery multiply for large batched operands, handling
-    leading-dim flattening and operand broadcasting; returns None when
-    the XLA path should be used instead (small/odd shapes, CPU)."""
-    if not available(a, b):
-        return None
+    """Kernel multiply when ``use_kernel`` picks it, else None."""
     shape = jnp.broadcast_shapes(a.shape, b.shape)
-    rows = int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) > 1 else 0
-    if rows < _MIN_ROWS:
+    if not use_kernel(batch_rows(shape)):
         return None
-    a2 = jnp.broadcast_to(a, shape).reshape(rows, LIMBS)
-    b2 = jnp.broadcast_to(b, shape).reshape(rows, LIMBS)
-    return _mul2d(spec, a2, b2).reshape(shape)
-
-
-def mont_mul(spec: F.FieldSpec, a, b):
-    """Direct entry point (tests/benches); gated by set_enabled."""
-    out = maybe_mont_mul(spec, a, b) if _ENABLED else None
-    if out is None:
-        return F.mont_mul(spec, a, b)
-    return out
-
-
-def enable_in_field_ops(ntt: bool = True) -> None:
-    """Route field.mont_mul's large multiplies and curve.add's large
-    batches through the Pallas kernels.  ``ntt=True`` (default)
-    additionally routes the grouped batched transforms
-    (ops/ntt.ntt_many) through the fused four-step Pallas NTT — 19x
-    the XLA path at the quotient's batch size (227 ms vs 4.3 s for
-    25 size-2^17 transforms, v5e) and the single biggest prove-phase
-    win.  The extra Mosaic call sites lengthen the FIRST cold compile
-    only (persistent compile cache covers repeats); pass ntt=False to
-    trade steady-state speed for a leaner one-shot cold start."""
-    from halo2_aes_tpu.ops import pallas_curve
-
-    set_enabled(True)
-    F.set_pallas(True)
-    pallas_curve.set_enabled(True)
-    if ntt:
-        from halo2_aes_tpu.ops import pallas_ntt
-
-        pallas_ntt.set_enabled(True)
+    return mont_mul(spec, a, b)

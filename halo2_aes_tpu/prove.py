@@ -6,6 +6,10 @@ step the reference lacks.
 
 Usage:
   python -m halo2_aes_tpu.prove --k 17 --blocks 4 --sets 1 --verify
+
+``run`` returns the timings and sizes as a JSON-able dict, plus the
+proof, the verifying key and the public instances under ``ARTIFACTS``
+keys (which ``main`` leaves out of its JSON line).
 """
 
 from __future__ import annotations
@@ -16,50 +20,31 @@ import time
 
 import numpy as np
 
+ARTIFACTS = ("proof", "vk", "instances")
 
-def run(k: int, n_sets: int, blocks: int, do_verify: bool, seed: int = 0,
-        srs_cache: str | None = "ptau", expose_ciphertext: bool = False,
-        use_pallas: bool = True, decrypt: bool = False,
-        checkpoint_dir: str | None = None,
-        backend: str = "kzg-shplonk") -> dict:
+
+def setup(k: int, n_sets: int, blocks: int, seed: int = 0,
+          srs_cache: str | None = "ptau", expose_ciphertext: bool = False,
+          decrypt: bool = False, backend: str = "kzg-shplonk",
+          tagged_ops: bool = False) -> dict:
+    """Compile the circuit, set up the SRS and keys, build the witness.
+
+    Returns {"backend", "layout", "pk", "values", "instances",
+    "timings"}; the instances are the public bytes from the host AES
+    oracle when ``expose_ciphertext`` (else None).  ``tagged_ops``
+    selects the encryption circuit's fused lookups (AesConfig)."""
     import jax
 
-    from halo2_aes_tpu.ops import field
-
-    # XLA compile passes run on the (single-core) host even for the TPU
-    # backend; compact limb kernels keep prover compiles tractable.
-    field.set_compact_graphs(True)
-    # Pallas kernels (Montgomery mul, curve adds, fused four-step NTT)
-    # are the steady-state fast path (warm k=17 prove 10 s vs 27 s);
-    # their one-time Mosaic compiles land in the persistent compile
-    # cache, so they default ON for the TPU backend (--no-pallas for a
-    # leaner first-ever cold start).
     from halo2_aes_tpu.utils.cache import enable_compile_cache
     enable_compile_cache()
-    if use_pallas and jax.default_backend() != "cpu":
-        from halo2_aes_tpu.ops import pallas_field
-
-        pallas_field.enable_in_field_ops()
 
     from halo2_aes_tpu.backend import get_backend
     from halo2_aes_tpu.circuit import witness
     from halo2_aes_tpu.models.aes128 import AesConfig, compile_circuit
 
     be = get_backend(backend)
-    keygen_cached, prove, verify = be.keygen, be.prove, be.verify
-
     timings = {}
-
-    def timed(name):
-        class _T:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *a):
-                timings[name] = round(time.perf_counter() - self.t0, 3)
-                print(f"[{name}] {timings[name]}s", flush=True)
-
-        return _T()
+    timed = _timer(timings)
 
     with timed("compile_circuit"):
         if decrypt:
@@ -71,12 +56,13 @@ def run(k: int, n_sets: int, blocks: int, do_verify: bool, seed: int = 0,
             layout = compile_dec(cfg)
         else:
             cfg = AesConfig(k=k, n_sets=n_sets, n_blocks=blocks,
-                            expose_ciphertext=expose_ciphertext)
+                            expose_ciphertext=expose_ciphertext,
+                            tagged_ops=tagged_ops)
             layout = compile_circuit(cfg)
     with timed("srs_setup"):
         srs = be.setup_srs(k, cache_dir=srs_cache)
     with timed("keygen"):
-        pk = keygen_cached(layout, srs, cache_dir=srs_cache or 'ptau')
+        pk = be.keygen(layout, srs, cache_dir=srs_cache or 'ptau')
 
     rng = np.random.default_rng(seed)
     key = rng.integers(0, 256, 16, dtype=np.uint8)
@@ -95,25 +81,59 @@ def run(k: int, n_sets: int, blocks: int, do_verify: bool, seed: int = 0,
             pool = witness.build_pool(jnp.asarray(key),
                                       jnp.asarray(plaintexts))
         values = jax.block_until_ready(witness.assemble_values(layout, pool))
-    with timed("prove"):
-        # NOTE: the data seed is NOT passed to prove(): blinding always
-        # comes from the OS CSPRNG (reproducible blinding would leak
-        # witness data; reference uses OsRng, src/main.rs:75).
-        proof = prove(pk, values, checkpoint_dir=checkpoint_dir)
+    instances = None
+    if expose_ciphertext:
+        # the verifier checks the proof binds to the TRUE public bytes,
+        # computed with an independent oracle (ciphertext for encryption;
+        # recovered plaintext for decryption)
+        pub = (plaintexts if decrypt
+               else np.asarray(aes.encrypt(plaintexts, key)))
+        instances = [[int(v) for v in np.asarray(pub).reshape(-1)]]
+    return {"backend": be, "layout": layout, "pk": pk, "values": values,
+            "instances": instances, "timings": timings}
+
+
+def _timer(timings: dict):
+    def timed(name):
+        class _T:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+
+            def __exit__(self, *a):
+                timings[name] = round(time.perf_counter() - self.t0, 3)
+                print(f"[{name}] {timings[name]}s", flush=True)
+
+        return _T()
+
+    return timed
+
+
+def run(k: int, n_sets: int, blocks: int, do_verify: bool, seed: int = 0,
+        srs_cache: str | None = "ptau", expose_ciphertext: bool = False,
+        decrypt: bool = False,
+        checkpoint_dir: str | None = None,
+        backend: str = "kzg-shplonk", proves: int = 1) -> dict:
+    """Set up, prove ``proves`` times and optionally verify.
+
+    timings["prove"] is the first prove (it includes the XLA compiles);
+    with ``proves > 1``, timings["prove_warm"] is the last one."""
+    st = setup(k, n_sets, blocks, seed, srs_cache, expose_ciphertext,
+               decrypt, backend)
+    be, pk, timings = st["backend"], st["pk"], st["timings"]
+    timed = _timer(timings)
+    # NOTE: the data seed is NOT passed to prove(): blinding always
+    # comes from the OS CSPRNG (reproducible blinding would leak
+    # witness data; reference uses OsRng, src/main.rs:75).
+    for i in range(proves):
+        with timed("prove" if i == 0 else "prove_warm"):
+            proof = be.prove(pk, st["values"], checkpoint_dir=checkpoint_dir)
     result = {"proof_bytes": len(proof), "timings": timings,
               "blocks": blocks, "k": k, "n_sets": n_sets,
-              "mode": "decrypt" if decrypt else "encrypt"}
+              "mode": "decrypt" if decrypt else "encrypt",
+              "proof": proof, "vk": pk.vk, "instances": st["instances"]}
     if do_verify:
-        instances = None
-        if expose_ciphertext:
-            # the verifier checks the proof binds to the TRUE public
-            # bytes, computed with an independent oracle (ciphertext for
-            # encryption; recovered plaintext for decryption)
-            pub = (plaintexts if decrypt
-                   else np.asarray(aes.encrypt(plaintexts, key)))
-            instances = [[int(v) for v in np.asarray(pub).reshape(-1)]]
         with timed("verify"):
-            verify(pk.vk, proof, instances=instances)
+            be.verify(pk.vk, proof, instances=st["instances"])
         result["verified"] = True
     return result
 
@@ -129,10 +149,6 @@ def main():
                     help="expose the public bytes as an instance column "
                          "(ciphertext when encrypting, recovered plaintext "
                          "with --decrypt)")
-    ap.add_argument("--pallas", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="Pallas fast path (default on; --no-pallas "
-                         "skips the one-time Mosaic compiles)")
     ap.add_argument("--decrypt", action="store_true",
                     help="prove AES-128 DECRYPTION (models/aes128_dec.py)")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -146,9 +162,9 @@ def main():
     args = ap.parse_args()
     result = run(args.k, args.sets, args.blocks, args.verify, args.seed,
                  expose_ciphertext=args.expose_ciphertext,
-                 use_pallas=args.pallas, decrypt=args.decrypt,
+                 decrypt=args.decrypt,
                  checkpoint_dir=args.checkpoint_dir, backend=args.backend)
-    print(json.dumps(result))
+    print(json.dumps({k: v for k, v in result.items() if k not in ARTIFACTS}))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Runtime sanitizers: limb-canonicity + transcript-determinism checks.
 
 Role of SURVEY.md §5.2 (the reference relies on safe Rust + debug
-overflow checks; a limb-decomposed TPU field stack has no such net):
+overflow checks; a limb-decomposed field stack has no such net):
 with ``HALO2_SANITIZE=1`` the prover validates, at every phase
 boundary, that the tensors it is about to commit are canonical field
 elements (every 16x16-bit limb vector < r).  A non-canonical limb

@@ -34,18 +34,11 @@ def main():
     ap.add_argument("--key-schedule-only", action="store_true")
     args = ap.parse_args()
 
-    from halo2_aes_tpu.ops import field
-
-    field.set_compact_graphs(True)
     import jax
 
     from halo2_aes_tpu.utils.cache import enable_compile_cache
 
     enable_compile_cache()
-    if jax.default_backend() != "cpu":
-        from halo2_aes_tpu.ops import pallas_field
-
-        pallas_field.enable_in_field_ops()
     import jax.numpy as jnp
     import numpy as np
 

@@ -14,19 +14,9 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from halo2_aes_tpu.ops import field
-
-field.set_compact_graphs(True)
-
-import jax
-
 from halo2_aes_tpu.utils.cache import enable_compile_cache
 
 enable_compile_cache()
-if jax.default_backend() != "cpu":
-    from halo2_aes_tpu.ops import pallas_field
-
-    pallas_field.enable_in_field_ops()
 
 import numpy as np
 

@@ -16,19 +16,11 @@ def main():
     blocks = int(args[1]) if len(args) > 1 else 16
     sets = int(args[2]) if len(args) > 2 else 1
 
-    from halo2_aes_tpu.ops import field
-
-    field.set_compact_graphs(True)
-
     import jax
 
     from halo2_aes_tpu.utils.cache import enable_compile_cache
 
     enable_compile_cache()
-    if jax.default_backend() != "cpu":
-        from halo2_aes_tpu.ops import pallas_field
-
-        pallas_field.enable_in_field_ops()
 
     t = time.perf_counter()
 

@@ -1,3 +1,7 @@
+"""Compile and steady time of a 2^17 MSM in one field graph mode.
+
+Usage: python scripts/msm_graph_modes.py compact|unrolled
+"""
 import sys, pathlib
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import sys, time, jax, numpy as np

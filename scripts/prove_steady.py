@@ -1,8 +1,7 @@
 """Steady-state AES prove timing: compile-warm pipeline, then timed proves.
 
 Usage: python scripts/prove_steady.py [k] [blocks] [sets]
-           [--no-pallas-ntt] [--record-bench-config] [--tagged]
-           [--lookup-sort=field|packed]
+           [--tagged] [--lookup-sort=field|packed]
 
 --tagged selects the LEAN circuit (AesConfig.tagged_ops: one fused
 tagged-op lookup per set instead of the reference's per-op lookups).
@@ -11,13 +10,6 @@ tagged-op lookup per set instead of the reference's per-op lookups).
 halo2's canonical-field-value sort, on-device radix argsort) or
 "packed" (host-precomputed byte-tuple sort — cheaper, different proof
 bytes, same argument).
-
-The fused four-step Pallas NTT is on by default (19x the XLA transform
-path at prove batch sizes); --no-pallas-ntt falls back to the XLA NTT
-for A/B comparisons.  --record-bench-config writes
-ptau/bench_config.json after a successful prove+verify so bench.py
-(the driver's headline metric) adopts this config — only configs proven
-on the attached hardware ever reach the scoreboard.
 """
 
 import pathlib
@@ -27,8 +19,7 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
-KNOWN_FLAGS = {"--no-pallas-ntt", "--record-bench-config", "--tagged",
-               "--lookup-sort=field", "--lookup-sort=packed"}
+KNOWN_FLAGS = {"--tagged", "--lookup-sort=field", "--lookup-sort=packed"}
 
 
 def main():
@@ -41,23 +32,14 @@ def main():
     k = int(args[0]) if len(args) > 0 else 17
     blocks = int(args[1]) if len(args) > 1 else 4
     sets = int(args[2]) if len(args) > 2 else 1
-    pallas_ntt = "--no-pallas-ntt" not in sys.argv
     tagged = "--tagged" in sys.argv
     lookup_sort = ("packed" if "--lookup-sort=packed" in sys.argv
                    else "field")
-
-    from halo2_aes_tpu.ops import field
-
-    field.set_compact_graphs(True)
 
     import jax
 
     from halo2_aes_tpu.utils.cache import enable_compile_cache
     enable_compile_cache()
-    if jax.default_backend() != "cpu":
-        from halo2_aes_tpu.ops import pallas_field
-
-        pallas_field.enable_in_field_ops(ntt=pallas_ntt)
     import jax.numpy as jnp
     import numpy as np
 
@@ -95,26 +77,6 @@ def main():
     t0 = time.perf_counter()
     verify(pk.vk, proof)
     print(f"verify {time.perf_counter()-t0:.2f}s ok", flush=True)
-
-    if "--record-bench-config" in sys.argv:
-        import json
-
-        # tracked at repo root (committed evidence trail — a number that
-        # only lives in a gitignored cache or a commit message does not
-        # count; round-3 verdict "What's missing" #1)
-        path = pathlib.Path(__file__).resolve().parent.parent / \
-            "bench_config.json"
-        with open(path, "w") as f:
-            json.dump({"k": k, "n_sets": sets, "n_blocks": blocks,
-                       "tagged_ops": tagged, "lookup_sort": lookup_sort,
-                       "verified": True,
-                       "steady_blocks_per_sec": round(blocks / dt, 3),
-                       "prove_seconds": round(dt, 2),
-                       "proof_bytes": len(proof),
-                       "recorded_at": time.strftime(
-                           "%Y-%m-%d %H:%M UTC", time.gmtime())}, f,
-                      indent=1)
-        print("bench_config.json recorded", flush=True)
 
 
 if __name__ == "__main__":

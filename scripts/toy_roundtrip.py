@@ -10,10 +10,6 @@ from tests.test_prove_verify import toy_circuit, K  # noqa: E402
 
 
 def main():
-    from halo2_aes_tpu.ops import field
-
-    field.set_compact_graphs(True)  # tractable compiles on the 1-cpu host
-
     from halo2_aes_tpu.backend import srs as SRS
     from halo2_aes_tpu.backend.keygen import keygen
     from halo2_aes_tpu.backend.prover import prove

@@ -5,9 +5,8 @@ tests at that scale.  SURVEY.md section 4 gap closure: the reference
 never proves nor verifies its own circuit.
 
 Heavy: AUTO-ENABLED whenever the suite runs on an accelerator
-(HALO2_TEST_DEVICE=tpu — the chip proves this in minutes, so the real
-circuit is inside the green-ness contract on TPU); on the CPU host it
-still needs the HALO2_AES_TPU_SLOW=1 opt-in (hours)."""
+(HALO2_TEST_ON_CARD=1, tests/conftest.py); on the CPU it needs the
+HALO2_AES_SLOW=1 opt-in (hours)."""
 
 import os
 
@@ -19,13 +18,13 @@ pytestmark = pytest.mark.slow
 
 @pytest.fixture(scope="module", autouse=True)
 def _aes_scale_gate():
-    if os.environ.get("HALO2_AES_TPU_SLOW") == "1":
+    if os.environ.get("HALO2_AES_SLOW") == "1":
         return
     import jax
 
     if jax.default_backend() == "cpu":
         pytest.skip("AES-scale prove: runs on accelerators automatically; "
-                    "set HALO2_AES_TPU_SLOW=1 to force on CPU (hours)")
+                    "set HALO2_AES_SLOW=1 to force on CPU (hours)")
 
 
 def test_aes_prove_verify_and_negatives(tmp_path):

@@ -4,7 +4,7 @@ Fast tier: counter construction + keystream XOR validated against the
 official SP 800-38A F.5.1 CTR-AES128 vectors (the reference has no
 mode-of-operation layer at all).  The end-to-end bundle prove/verify is
 auto-enabled on accelerators like the other AES-scale proves
-(HALO2_AES_TPU_SLOW=1 forces it on CPU)."""
+(HALO2_AES_SLOW=1 forces it on CPU)."""
 
 import os
 
@@ -18,13 +18,13 @@ from halo2_aes_tpu import ctr
 def _aes_scale_gate(request):
     if "slow" not in request.keywords:
         return
-    if os.environ.get("HALO2_AES_TPU_SLOW") == "1":
+    if os.environ.get("HALO2_AES_SLOW") == "1":
         return
     import jax
 
     if jax.default_backend() == "cpu":
         pytest.skip("AES-scale prove: runs on accelerators automatically; "
-                    "set HALO2_AES_TPU_SLOW=1 to force on CPU (hours)")
+                    "set HALO2_AES_SLOW=1 to force on CPU (hours)")
 
 
 def test_counter_block_layout():

@@ -92,3 +92,19 @@ def test_root_of_unity():
     p = F.FR.modulus
     assert pow(w, 1 << 28, p) == 1
     assert pow(w, 1 << 27, p) != 1
+
+
+@pytest.mark.parametrize("m,out_limbs", [(17, 17), (33, 16), (5, 3)])
+def test_carry_norm_matches_bigint(m, out_limbs):
+    """The loop-free carry resolves arbitrary 32-bit redundant limbs,
+    long 0xFFFF ripples included, to the digits of the value mod 2^(16m)."""
+    rng = np.random.default_rng(m)
+    acc = rng.integers(0, 1 << 32, (64, m), dtype=np.uint64).astype(np.uint32)
+    acc[::2] = np.where(rng.random((32, m)) < 0.7, 0xFFFF, acc[::2])
+    acc[1, :] = 0xFFFF
+    acc[1, 0] = 0x10000
+    got = np.asarray(F._carry_norm(jnp.asarray(acc), out_limbs))
+    for row, out in zip(acc, got):
+        v = sum(int(x) << (16 * i) for i, x in enumerate(row)) % (1 << (16 * m))
+        assert [int(x) for x in out] == [(v >> (16 * i)) & 0xFFFF
+                                         for i in range(out_limbs)]

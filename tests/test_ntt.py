@@ -86,32 +86,3 @@ def test_ntt_flat_matches_per_poly():
                 == SPEC.decode(np.asarray(one))), i
     back = ntt.ntt_flat(dom, out, count, inverse=True)
     assert SPEC.decode(np.asarray(back)) == SPEC.decode(np.asarray(flat))
-
-
-def test_pallas_ntt_matches_xla():
-    """The fused four-step Pallas NTT (ops/pallas_ntt.py) is bit-exact
-    vs the XLA path, through the ntt_many routing gate, at a size big
-    enough to exercise both passes and the mid-twiddle multiply
-    (interpret mode = the same kernel lattice run eagerly on CPU)."""
-    import pytest
-
-    from halo2_aes_tpu.ops import pallas_ntt as PN
-
-    k = 15
-    dom = ntt.domain(SPEC, k)
-    count = 2
-    vals = [RNG.randrange(P) for _ in range(count * dom.n)]
-    flat = jnp.asarray(SPEC.encode(vals))
-    expect = np.asarray(ntt.ntt_many(dom, flat, count))
-    PN.set_interpret(True)
-    try:
-        assert PN.enabled_for(dom)
-        got = np.asarray(ntt.ntt_many(dom, flat, count))
-        assert (got == expect).all()
-        back = np.asarray(ntt.ntt_many(dom, jnp.asarray(got), count,
-                                       inverse=True))
-        assert (back == np.asarray(flat)).all()
-    finally:
-        PN.set_interpret(False)
-    # small domains fall back to XLA even when enabled
-    assert not PN.enabled_for(ntt.domain(SPEC, 6))

@@ -22,7 +22,7 @@ def mesh():
     devs = jax.devices()
     if len(devs) < 8:
         pytest.skip("needs the 8-device CPU mesh "
-                    "(HALO2_TEST_DEVICE=tpu runs single-chip)")
+                    "(HALO2_TEST_ON_CARD=1 runs on the attached cards)")
     return Mesh(np.array(devs[:8]), axis_names=("dp",))
 
 
