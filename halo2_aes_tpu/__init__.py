@@ -1,6 +1,6 @@
 """halo2_aes_tpu: a JAX AES-in-ZK proving stack for the GPU.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework (with CUDA kernels through the XLA FFI) with the capabilities of the
 `tkmct/halo2-aes` circuit library *plus* the halo2 (PSE v0.3.0) proving
 backend it depends on: a plonkish constraint system with tagged-table
 lookups, a KZG/SHPLONK prover over BN254, batched AES-128 witness

@@ -35,7 +35,7 @@ def _shift_powers(k: int, inverse: bool):
 
 
 def to_coeffs(dom: Domain, evals):
-    # ntt_many(count=1) == ntt, plus the Pallas fast-path routing gate
+    # ntt_many(count=1) == ntt, plus the NTT group routing gate
     return ntt_many(dom, evals, 1, inverse=True)
 
 

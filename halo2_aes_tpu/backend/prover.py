@@ -362,7 +362,7 @@ class _Phases:
     def _eval_many(self, count, flat, x_m):
         n = self.n
         pw = F.powers(FR, x_m, n)
-        cur = F.mont_mul_fast(FR, flat, jnp.tile(pw, (count, 1)))
+        cur = F.mont_mul(FR, flat, jnp.tile(pw, (count, 1)))
         m = n
         # segment pair-fold, all arithmetic rank-2 (lane-padding rules)
         while m > 1:

@@ -15,6 +15,11 @@ a = 0 prime-order curves (eprint 2015/1060, algorithms 7 and 9):
     traced graph and the sequential depth per add — less than half the
     cost of the Jacobian complete adder this replaces.
 
+On the GPU ``add`` and ``double`` each run as one CUDA kernel
+(ops/gpu_field.py) with the same dataflow; ``add_xla`` and
+``double_xla`` are the plain XLA forms (built from the field module's
+XLA forms), which run elsewhere and are the kernels' reference.
+
 Curve: y^2 z = x^3 + 3 z^3 over Fq, prime order r (= Fr modulus).
 Identity convention: Z == 0 (canonically (0 : 1 : 0); any (0 : y!=0 : 0)
 representative is projectively equivalent and handled exactly).
@@ -22,6 +27,7 @@ representative is projectively equivalent and handled exactly).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -71,19 +77,38 @@ def _bmul(pairs):
     the device lanes wide."""
     a = jnp.stack([x for x, _ in pairs])
     b = jnp.stack([y for _, y in pairs])
-    out = F.mont_mul(FQ, a, b)
+    out = F.mont_mul_xla(FQ, a, b)
     return [out[i] for i in range(len(pairs))]
 
 
 def _mul_b3(a):
     """9 * a via an add chain (8a + a): 4 vector adds, no multiply."""
-    a2 = F.add(FQ, a, a)
-    a4 = F.add(FQ, a2, a2)
-    a8 = F.add(FQ, a4, a4)
-    return F.add(FQ, a8, a)
+    a2 = F.add_xla(FQ, a, a)
+    a4 = F.add_xla(FQ, a2, a2)
+    a8 = F.add_xla(FQ, a4, a4)
+    return F.add_xla(FQ, a8, a)
 
 
 def add(p, q):
+    """RCB complete addition (one kernel on the GPU, else ``add_xla``)."""
+    from halo2_aes_tpu.ops import gpu_field
+
+    if gpu_field.use_kernels():
+        return gpu_field.g1_add(p, q)
+    return add_xla(p, q)
+
+
+def double(p):
+    """RCB complete doubling (one kernel on the GPU, else ``double_xla``)."""
+    from halo2_aes_tpu.ops import gpu_field
+
+    if gpu_field.use_kernels():
+        return gpu_field.g1_double(p)
+    return double_xla(p)
+
+
+@jax.jit
+def add_xla(p, q):
     """RCB complete addition (alg. 7, a=0, b3=9): handles identity on
     either side, P + P, and P + (-P) with NO branches or selects.
 
@@ -91,8 +116,8 @@ def add(p, q):
     """
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    fadd = lambda a, b: F.add(FQ, a, b)  # noqa: E731
-    fsub = lambda a, b: F.sub(FQ, a, b)  # noqa: E731
+    fadd = lambda a, b: F.add_xla(FQ, a, b)  # noqa: E731
+    fsub = lambda a, b: F.sub_xla(FQ, a, b)  # noqa: E731
 
     t0, t1, t2, A, B, C = _bmul([
         (X1, X2), (Y1, Y2), (Z1, Z2),
@@ -118,13 +143,14 @@ def add(p, q):
     return (X3, Y3, Z3)
 
 
-def double(p):
+@jax.jit
+def double_xla(p):
     """RCB complete doubling (alg. 9, a=0, b3=9).  Identity-safe.
 
     8 field multiplies in two stacked stages."""
     X, Y, Z = p
-    fadd = lambda a, b: F.add(FQ, a, b)  # noqa: E731
-    fsub = lambda a, b: F.sub(FQ, a, b)  # noqa: E731
+    fadd = lambda a, b: F.add_xla(FQ, a, b)  # noqa: E731
+    fsub = lambda a, b: F.sub_xla(FQ, a, b)  # noqa: E731
 
     t0, t1, t2, t3 = _bmul([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
     z8 = fadd(t0, t0)

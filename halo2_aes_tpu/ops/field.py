@@ -13,10 +13,10 @@ Design:
     accumulator: partial products are split into lo/hi 16-bit halves and
     accumulated in uint32 columns (bounded < 2^23, no overflow), so carry
     propagation happens only once at the end.
-  * Graphs stay small: by default a multiply is a 16-step fori_loop and
-    every carry chain a loop-free log-depth carry-lookahead; an
-    unrolled form (static Python loops over the limbs) is kept for
-    measurement (see ``set_compact_graphs``).
+  * On the GPU, BN254 Fr and Fq operations run as CUDA kernels
+    (ops/gpu_field.py).  Elsewhere the XLA forms below run; their graphs
+    stay small: a multiply is a 16-step fori_loop and every carry chain
+    a loop-free log-depth carry-lookahead.
   * Batch inversion uses two ``associative_scan`` cumulative products +
     one Fermat inversion, replacing the sequential loop a CPU
     implementation would use.
@@ -166,23 +166,6 @@ FQ = FieldSpec("bn254_fq", FQ_MODULUS)
 
 _U32 = jnp.uint32
 
-# Graph-size mode.  Compact (the default) traces each multiply as a
-# 16-step fori_loop (~10 ops) and every carry chain as a loop-free
-# log-depth carry-lookahead; unrolled traces ~hundreds of ops per
-# multiply and sequential carry chains.  On an H100 unrolled graphs ran
-# a 32 x 2^17 coset-NTT group 15x faster, but XLA had not finished
-# compiling the unrolled SRS window sum after 8 minutes, so the prover
-# runs compact everywhere.  ``set_compact_graphs(False)`` exists for
-# measurements (tests/test_kernels.py times both forms).
-_COMPACT = True
-
-
-def set_compact_graphs(on: bool) -> None:
-    """Must be called before the first field op: the jitted entry points
-    below cache traces, and a later flip would not retrace them."""
-    global _COMPACT
-    _COMPACT = bool(on)
-
 
 def _mask():
     return _U32(LIMB_MASK)
@@ -209,74 +192,48 @@ def _carry_norm(acc, out_limbs=LIMBS):
     limbs of the value mod 2^(16m).  ``acc`` has shape (..., m); returns
     (..., out_limbs).
 
-    Compact mode is loop-free: one split moves every limb's high half up
-    a limb (leaving limbs < 2^17, so each carry is 0 or 1), then a
-    Kogge-Stone prefix over (generate, propagate) bits resolves the
-    ripple in ceil(log2 m) vectorized rounds.  Unrolled mode runs the
-    sequential chain.
+    Loop-free: one split moves every limb's high half up a limb (leaving
+    limbs < 2^17, so each carry is 0 or 1), then a Kogge-Stone prefix
+    over (generate, propagate) bits resolves the ripple in
+    ceil(log2 m) vectorized rounds.
     """
     m = acc.shape[-1]
-    if _COMPACT:
-        mask = _mask()
-        s = (acc & mask) + _shift_up(acc >> LIMB_BITS, 1)   # < 2^17 - 1
-        t = s & mask
-        gen = s >> LIMB_BITS                    # carry out regardless of c
-        prop = (t == mask).astype(_U32)         # carry out iff carry in
-        d = 1
-        while d < m:
-            gen = gen | (prop & _shift_up(gen, d))
-            prop = prop & _shift_up(prop, d)
-            d *= 2
-        return ((t + _shift_up(gen, 1)) & mask)[..., :out_limbs]
-    limbs = []
-    carry = jnp.zeros(acc.shape[:-1], dtype=_U32)
-    for i in range(m):
-        v = acc[..., i] + carry
-        limbs.append(v & _mask())
-        carry = v >> LIMB_BITS
-    out = jnp.stack(limbs[:out_limbs], axis=-1)
-    return out
+    mask = _mask()
+    s = (acc & mask) + _shift_up(acc >> LIMB_BITS, 1)   # < 2^17 - 1
+    t = s & mask
+    gen = s >> LIMB_BITS                    # carry out regardless of c
+    prop = (t == mask).astype(_U32)         # carry out iff carry in
+    d = 1
+    while d < m:
+        gen = gen | (prop & _shift_up(gen, d))
+        prop = prop & _shift_up(prop, d)
+        d *= 2
+    return ((t + _shift_up(gen, 1)) & mask)[..., :out_limbs]
 
 
 def _add_raw(a, b):
-    """(a + b) over 16 limbs with carry chain; returns (sum_limbs, carry_out)."""
+    """(a + b) over 16 limbs; returns (sum_limbs, carry_out).  a + b never
+    overflows u32 columns: one redundant add + carry pass."""
     bshape = jnp.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    if _COMPACT:
-        # a + b never overflows u32 columns; one redundant add + carry pass
-        s = jnp.broadcast_to(a, (*bshape, LIMBS)) + jnp.broadcast_to(b, (*bshape, LIMBS))
-        wide = jnp.concatenate([s, jnp.zeros((*bshape, 1), _U32)], axis=-1)
-        out = _carry_norm(wide, LIMBS + 1)
-        return out[..., :LIMBS], out[..., LIMBS]
-    limbs = []
-    carry = jnp.zeros(bshape, dtype=_U32)
-    for i in range(LIMBS):
-        v = a[..., i] + b[..., i] + carry
-        limbs.append(v & _mask())
-        carry = v >> LIMB_BITS
-    return jnp.stack(limbs, axis=-1), carry
+    s = jnp.broadcast_to(a, (*bshape, LIMBS)) + jnp.broadcast_to(b, (*bshape, LIMBS))
+    wide = jnp.concatenate([s, jnp.zeros((*bshape, 1), _U32)], axis=-1)
+    out = _carry_norm(wide, LIMBS + 1)
+    return out[..., :LIMBS], out[..., LIMBS]
 
 
 def _sub_raw(a, b):
-    """(a - b) over 16 limbs with borrow chain; returns (diff, borrow_out)."""
+    """(a - b) over 16 limbs; returns (diff, borrow_out).
+
+    Biased redundant form: a_i + (2^16 - 1) - b_i + 1 at limb 0 keeps
+    every column in [0, 2^17); the carry pass then yields a - b + 2^256,
+    whose top carry bit is the NOT-borrow flag."""
     bshape = jnp.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    if _COMPACT:
-        # biased redundant form: a_i + (2^16 - 1) - b_i + 1 at limb 0 keeps
-        # every column in [0, 2^17); the carry pass then yields a - b + 2^256,
-        # whose top carry bit is the NOT-borrow flag.
-        bias = jnp.full((*bshape, LIMBS), LIMB_MASK, _U32)
-        s = jnp.broadcast_to(a, (*bshape, LIMBS)) + bias - jnp.broadcast_to(b, (*bshape, LIMBS))
-        s = s.at[..., 0].add(1)
-        wide = jnp.concatenate([s, jnp.zeros((*bshape, 1), _U32)], axis=-1)
-        out = _carry_norm(wide, LIMBS + 1)
-        return out[..., :LIMBS], _U32(1) - out[..., LIMBS]
-    limbs = []
-    borrow = jnp.zeros(bshape, dtype=_U32)
-    for i in range(LIMBS):
-        # add 2^16 bias so the subtraction never wraps below zero
-        v = a[..., i] + _U32(1 << LIMB_BITS) - b[..., i] - borrow
-        limbs.append(v & _mask())
-        borrow = _U32(1) - (v >> LIMB_BITS)
-    return jnp.stack(limbs, axis=-1), borrow
+    bias = jnp.full((*bshape, LIMBS), LIMB_MASK, _U32)
+    s = jnp.broadcast_to(a, (*bshape, LIMBS)) + bias - jnp.broadcast_to(b, (*bshape, LIMBS))
+    s = s.at[..., 0].add(1)
+    wide = jnp.concatenate([s, jnp.zeros((*bshape, 1), _U32)], axis=-1)
+    out = _carry_norm(wide, LIMBS + 1)
+    return out[..., :LIMBS], _U32(1) - out[..., LIMBS]
 
 
 def _cond_sub_p(spec: FieldSpec, a):
@@ -287,13 +244,11 @@ def _cond_sub_p(spec: FieldSpec, a):
     return jnp.where(ge, d, a)
 
 
-# The public entry points below are jitted with the FieldSpec static:
-# called eagerly, closure-free jit args hit the pjit cache per shape
-# (an eager fori_loop would close over concrete arrays as jaxpr
-# constants and recompile on every call).
+# The plain XLA forms of the four basic operations.  They run wherever
+# the CUDA kernels do not (ops/gpu_field.py: BN254 Fr and Fq on the
+# GPU), and they are the reference the kernels are checked against.
 
-@functools.partial(jax.jit, static_argnums=0)
-def add(spec: FieldSpec, a, b):
+def add_xla(spec: FieldSpec, a, b):
     """Canonical modular addition."""
     s, carry = _add_raw(a, b)
     # a+b < 2p < 2^255 so carry==0 always for canonical inputs.
@@ -301,8 +256,7 @@ def add(spec: FieldSpec, a, b):
     return _cond_sub_p(spec, s)
 
 
-@functools.partial(jax.jit, static_argnums=0)
-def sub(spec: FieldSpec, a, b):
+def sub_xla(spec: FieldSpec, a, b):
     """Canonical modular subtraction."""
     d, borrow = _sub_raw(a, b)
     p = jnp.asarray(spec.p_limbs)
@@ -310,8 +264,7 @@ def sub(spec: FieldSpec, a, b):
     return jnp.where((borrow == 1)[..., None], d_plus_p, d)
 
 
-@functools.partial(jax.jit, static_argnums=0)
-def neg(spec: FieldSpec, a):
+def neg_xla(spec: FieldSpec, a):
     p = jnp.asarray(spec.p_limbs)
     d, _ = _sub_raw(p, a)
     # neg(0) must be 0, not p
@@ -319,77 +272,78 @@ def neg(spec: FieldSpec, a):
     return jnp.where(is_zero, jnp.zeros_like(d), d)
 
 
-def _mont_mul_impl(a, b, p_limbs, n0inv):
+def mont_mul_xla(spec: FieldSpec, a, b):
     """Montgomery multiply: returns a*b*R^-1 mod p, canonical.
 
     Interleaved operand-scanning (CIOS) with a redundant uint32
     accumulator, vectorized over the limb axis: each of the 16 outer
-    steps is one 16-wide multiply plus slice-adds, so the traced graph
-    stays small and every op is wide.  Bounds: every accumulator
-    limb receives at most 16 lo + 16 hi halves from the product plus
-    16 lo + 16 hi from the reduction plus carries => < 2^23 << 2^32.
+    steps (one fori_loop step) is one 16-wide multiply plus slice-adds,
+    so the traced graph stays small and every op is wide.  Bounds: every
+    accumulator limb receives at most 16 lo + 16 hi halves from the
+    product plus 16 lo + 16 hi from the reduction plus carries
+    => < 2^23 << 2^32.
     """
-    n = p_limbs  # (16,), broadcasts against (..., 1) * (16,)
+    n = jnp.asarray(spec.p_limbs)  # (16,), broadcasts against (..., 1) * (16,)
     bshape = jnp.broadcast_shapes(a.shape[:-1], b.shape[:-1])
     a = jnp.broadcast_to(a, (*bshape, LIMBS))
     b = jnp.broadcast_to(b, (*bshape, LIMBS))
     acc = jnp.zeros((*bshape, 2 * LIMBS + 1), dtype=_U32)
     mask = _mask()
-    n0 = _U32(n0inv)
+    n0 = _U32(spec.n0inv)
 
-    if _COMPACT:
-        # interleaved CIOS: one fori_loop step = product row + reduction row
-        def step(i, acc):
-            ai = jax.lax.dynamic_slice_in_dim(a, i, 1, axis=-1)
-            t = ai * b
-            acc = _dus_add(acc, t & mask, i)
-            acc = _dus_add(acc, t >> LIMB_BITS, i + 1)
-            acc_i = jax.lax.dynamic_slice_in_dim(acc, i, 1, axis=-1)
-            m = (acc_i * n0) & mask
-            q = m * n
-            acc = _dus_add(acc, q & mask, i)
-            acc = _dus_add(acc, q >> LIMB_BITS, i + 1)
-            acc_i = jax.lax.dynamic_slice_in_dim(acc, i, 1, axis=-1)
-            return _dus_add(acc, acc_i >> LIMB_BITS, i + 1)
-
-        acc = jax.lax.fori_loop(0, LIMBS, step, acc)
-        return _carry_norm(acc[..., LIMBS:], out_limbs=LIMBS)
-
-    # schoolbook product, lo/hi split
-    for i in range(LIMBS):
-        p_ = a[..., i : i + 1] * b  # (..., 16)
-        acc = acc.at[..., i : i + LIMBS].add(p_ & mask)
-        acc = acc.at[..., i + 1 : i + 1 + LIMBS].add(p_ >> LIMB_BITS)
-
-    # Montgomery reduction, one limb at a time
-    for i in range(LIMBS):
-        m = ((acc[..., i] * n0) & mask)[..., None]
+    def step(i, acc):
+        ai = jax.lax.dynamic_slice_in_dim(a, i, 1, axis=-1)
+        t = ai * b
+        acc = _dus_add(acc, t & mask, i)
+        acc = _dus_add(acc, t >> LIMB_BITS, i + 1)
+        acc_i = jax.lax.dynamic_slice_in_dim(acc, i, 1, axis=-1)
+        m = (acc_i * n0) & mask
         q = m * n
-        acc = acc.at[..., i : i + LIMBS].add(q & mask)
-        acc = acc.at[..., i + 1 : i + 1 + LIMBS].add(q >> LIMB_BITS)
-        # acc[i] is now divisible by 2^16; fold its carry upward
-        acc = acc.at[..., i + 1].add(acc[..., i] >> LIMB_BITS)
+        acc = _dus_add(acc, q & mask, i)
+        acc = _dus_add(acc, q >> LIMB_BITS, i + 1)
+        acc_i = jax.lax.dynamic_slice_in_dim(acc, i, 1, axis=-1)
+        return _dus_add(acc, acc_i >> LIMB_BITS, i + 1)
 
-    r = _carry_norm(acc[..., LIMBS:], out_limbs=LIMBS)  # value < 2p
-    return r
+    acc = jax.lax.fori_loop(0, LIMBS, step, acc)
+    return _cond_sub_p(spec, _carry_norm(acc[..., LIMBS:], out_limbs=LIMBS))
+
+
+# The public entry points below are jitted with the FieldSpec static:
+# called eagerly, closure-free jit args hit the pjit cache per shape
+# (an eager fori_loop would close over concrete arrays as jaxpr
+# constants and recompile on every call).  The kernel choice is made at
+# trace time from the backend.
+
+def _kernels(spec: FieldSpec):
+    from halo2_aes_tpu.ops import gpu_field
+
+    return gpu_field if gpu_field.use_kernels(spec) else None
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def add(spec: FieldSpec, a, b):
+    """Canonical modular addition."""
+    k = _kernels(spec)
+    return k.add(spec, a, b) if k else add_xla(spec, a, b)
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def sub(spec: FieldSpec, a, b):
+    """Canonical modular subtraction."""
+    k = _kernels(spec)
+    return k.sub(spec, a, b) if k else sub_xla(spec, a, b)
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def neg(spec: FieldSpec, a):
+    k = _kernels(spec)
+    return k.neg(spec, a) if k else neg_xla(spec, a)
 
 
 @functools.partial(jax.jit, static_argnums=0)
 def mont_mul(spec: FieldSpec, a, b):
-    p = jnp.asarray(spec.p_limbs)
-    r = _mont_mul_impl(a, b, p, spec.n0inv)
-    return _cond_sub_p(spec, r)
-
-
-def mont_mul_fast(spec: FieldSpec, a, b):
-    """Montgomery multiply through the Pallas kernel where
-    ``pallas_field.use_kernel`` picks it (GPU, large batch), else
-    ``mont_mul``.  Only the hot batched sites (the NTT butterfly, the
-    coset shift) call this wrapper."""
-    from halo2_aes_tpu.ops import pallas_field
-
-    out = pallas_field.maybe_mont_mul(spec, a, b)
-    return mont_mul(spec, a, b) if out is None else out
+    k = _kernels(spec)
+    return k.mont_mul(spec, a, b) if k else mont_mul_xla(spec, a, b)
 
 
 def mul(spec: FieldSpec, a, b):

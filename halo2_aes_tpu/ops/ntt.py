@@ -128,8 +128,7 @@ def _ntt_impl(dom: Domain, x, inverse: bool = False, count: int = 1):
     otherwise scale with k * batch; measured 500s+ for an unrolled k=10
     on XLA CPU).  Each element gathers its partner, so the multiply is
     done for both halves (2x redundant) — a deliberate trade of
-    arithmetic for constant graph size.  On the GPU the multiply runs
-    in the Pallas kernel (field.mont_mul_fast).
+    arithmetic for constant graph size.
     """
     spec = dom.spec
     n = dom.n
@@ -154,7 +153,7 @@ def _ntt_impl(dom: Domain, x, inverse: bool = False, count: int = 1):
         hi = jnp.take(x, hi_idx, axis=0)
         tw = jnp.take(tw_full, tw_idx, axis=0)
         # the one multiply per stage
-        t = F.mont_mul_fast(spec, hi, tw)
+        t = F.mont_mul(spec, hi, tw)
         upper = (j >= half)[:, None]
         return jnp.where(upper, F.sub(spec, lo, t), F.add(spec, lo, t))
 
@@ -191,7 +190,7 @@ def ntt_many(dom: Domain, flat, count: int, inverse: bool = False,
     n = dom.n
     spec = dom.spec
     if shift_pows is not None:
-        flat = F.mont_mul_fast(spec, flat, jnp.tile(shift_pows, (count, 1)))
+        flat = F.mont_mul(spec, flat, jnp.tile(shift_pows, (count, 1)))
     if count == 1:
         return ntt(dom, flat, inverse=inverse)
 

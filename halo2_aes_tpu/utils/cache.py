@@ -1,7 +1,7 @@
 """Persistent XLA compilation cache for accelerator backends.
 
-Cuts repeat cold starts: compiled executables (including their Pallas
-kernels) are reloaded from disk, leaving only trace and lowering time.
+Cuts repeat cold starts: compiled executables are reloaded from disk,
+leaving only trace and lowering time.
 Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
 this module sets no other path; otherwise the cache lives at the fixed
 path ``<repo>/ptau/xla_cache`` (the path is part of what makes later
@@ -16,11 +16,6 @@ import os
 ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "ptau", "xla_cache")
-
-
-def cache_dir() -> str:
-    """The directory the cache uses: the environment's, else DEFAULT_DIR."""
-    return os.environ.get(ENV_VAR) or DEFAULT_DIR
 
 
 def enable_compile_cache() -> bool:

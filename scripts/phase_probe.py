@@ -2,7 +2,7 @@
 
 Times (warm, per call): commit MSM (with tables), batched NTT, batch_inv,
 cumprod, a full lookup grand product, and the SHPLONK fold — the inputs
-to deciding where the next Pallas kernel goes (VERDICT r2 item 3).
+to deciding where the next kernel goes.
 """
 
 import pathlib
